@@ -1,12 +1,13 @@
-"""aho_corasick_1975_tpu — a TPU-native multi-pattern matching framework.
+"""aho_corasick_1975_tpu — an accelerator-native multi-pattern matching
+framework in JAX.
 
 A from-scratch re-design of the capabilities of the C reference library
 ``farhiongit/aho-corasick-1975`` (generic-alphabet Aho–Corasick 1975 automaton
-+ Meyer 1985 incremental insertion) for TPU hardware:
++ Meyer 1985 incremental insertion) for accelerators (NVIDIA GPUs):
 
 * host-side builder collapses goto/fail/output into dense int32 tables
   (``core/``),
-* the scan is a blocked gather recurrence compiled by XLA / Pallas (``ops/``),
+* the scan is a blocked gather recurrence compiled by XLA (``ops/``),
 * corpora shard data-parallel over a ``jax.sharding.Mesh`` with halo handoff
   and psum-reduced match counts (``parallel/``),
 * full reference API parity (``api.py``) plus conformance-tested semantics.

@@ -19,12 +19,13 @@ of the reference C library (``/root/reference/aho_corasick.c``):
 * match retrieval along the fail chain, index 0 = longest match
   (ref: acm_get_match c:450-482).
 
-Design difference from the reference (deliberate, TPU-first): the reference
-keeps letters generic (``void*`` + user comparator) all the way down and pays a
-map lookup per symbol. Here genericity is resolved *above* this module by a
+Design difference from the reference (deliberate, accelerator-first): the
+reference
+keeps letters generic (``void*`` + user comparator) all the way down and pays
+a map lookup per symbol. Here genericity is resolved *above* this module by a
 vocabulary map (``utils/vocab.py``); the builder operates on dense ``int``
 letter ids so that the automaton can be emitted as dense ``int32`` tables for
-the TPU scan kernels (``ops/``). Letter id 0 is reserved for OOV ("letter not
+the device scan kernels (``ops/``). Letter id 0 is reserved for OOV ("letter not
 in any keyword"), which behaves exactly like an undefined transition from the
 root (reference modification [3], README.md:347).
 """
@@ -81,7 +82,7 @@ class DenseTables:
     # Capacity-padded backing buffer of ``delta`` ([round_cap(S), V];
     # ``delta`` is its first-S-rows view), emitted by the native backend so
     # a DeviceSnapshot can adopt it without a second first-touch + copy of
-    # the whole table (~70 MB/s page faults on small hosts). Claimed at
+    # the whole table (page faults dominate on small hosts). Claimed at
     # most once via claim_cap_delta(); None for the pure-Python backend.
     cap_delta: Optional[np.ndarray] = None
 

@@ -20,11 +20,11 @@ acm_print                       Machine.print(stream, printer)
 acm_release                     (garbage collected)
 ==============================  ==========================================
 
-Beyond parity, the machine exposes the TPU path: ``compile()`` emits an
+Beyond parity, the machine exposes the device path: ``compile()`` emits an
 immutable dense-table snapshot (``DenseTables``) that the scanners in
 ``models/scanner.py`` upload and scan on device. Snapshots are versioned:
 keywords inserted after a ``compile()`` are visible to the *next* snapshot
-only — the TPU consistency model for the reference's insert-during-scan
+only — the device consistency model for the reference's insert-during-scan
 feature (README.md:352-356; see SURVEY.md §7 "Insert-during-scan semantics").
 """
 
@@ -310,7 +310,7 @@ class Machine:
     def value_of_state(self, state: int) -> Any:
         return self._values.get(state)
 
-    # -- TPU path -----------------------------------------------------------
+    # -- device path --------------------------------------------------------
 
     def compile(self) -> DenseTables:
         """Emit an immutable dense-table snapshot of the current dictionary.

@@ -1,4 +1,4 @@
-"""Columnar match results — C-speed retrieval at TPU-scale match counts.
+"""Columnar match results — C-speed retrieval at device-scale match counts.
 
 The reference streams matches one at a time through ``acm_get_match``
 (/root/reference/aho_corasick.c:450-482): a fail-chain walk plus a backward

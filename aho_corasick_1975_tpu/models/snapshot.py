@@ -275,7 +275,7 @@ class DeviceSnapshot:
                  width: int):
         """Scatter in fixed-size chunks so each width compiles exactly ONE
         scatter executable per process — a refresh must never wait on XLA
-        (a fresh compile costs seconds on TPU, dwarfing the scatter).
+        (a fresh compile costs seconds, dwarfing the scatter).
         Chunks are padded by repeating the last row; duplicate indices with
         identical values are a benign no-op."""
         chunk = max(1024, (1 << 18) // width)

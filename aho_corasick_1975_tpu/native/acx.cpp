@@ -2,8 +2,8 @@
 //
 // From-scratch C++ implementation of the goto/fail/output construction the
 // reference C library implements over generic pointers + ordered maps
-// (/root/reference/aho_corasick.c). Differences are deliberate and
-// TPU-first (see SURVEY.md §7):
+// (reference aho_corasick.c). Differences are deliberate and
+// accelerator-first (see SURVEY.md §7):
 //   * the alphabet is dense int32 letter ids (the Python vocab layer resolves
 //     generic signs / comparators once at registration, not per operation);
 //   * states are structure-of-arrays indexed by creation-order id (ids match

@@ -1,7 +1,7 @@
 """Halo-overlap blocking: sequence parallelism for the automaton scan.
 
 The reference scans strictly sequentially, one symbol per call (acm_match,
-aho_corasick.c:433-448). The TPU design exploits a structural property of the
+aho_corasick.c:433-448). The device design exploits a structural property of the
 Aho–Corasick automaton instead of translating that loop:
 
     The state after consuming position t is, by construction, the longest

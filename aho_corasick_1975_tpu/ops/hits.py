@@ -118,10 +118,9 @@ def make_blocked_hits_raw(V: int, halo: int, max_hits: int, B: int, L: int):
 
 def _compact(mask, size: int):
     """Ordered indices of True entries, -1-padded to ``size`` — the
-    jnp.nonzero(size=..., fill_value=-1) contract via cumsum + scatter,
-    measured 1.5x faster than XLA's sort-based nonzero at 33M elements on
-    v5e (entries past ``size`` are dropped, exactly like nonzero's
-    truncation)."""
+    jnp.nonzero(size=..., fill_value=-1) contract via cumsum + scatter
+    instead of XLA's sort-based nonzero (entries past ``size`` are
+    dropped, exactly like nonzero's truncation)."""
     n = mask.shape[0]
     pos = jnp.cumsum(mask.astype(jnp.int32)) - 1
     tgt = jnp.where(mask, pos, size)            # out-of-range -> dropped
@@ -302,12 +301,8 @@ def _hits_extract_dense(V: int, k: int, count_bits: int, cb1: int,
     dflat + nb_out; syms: [L, B] body symbols. A single cumsum +
     iota-scatter compaction lands hit positions in stream order; the
     STATES then come from an output-sized gather back into the flat
-    stream (round 5: replacing the second full-size value scatter —
-    measured 1.62 -> 1.46 s at the headline density; the iota scatter
-    itself floors at the chip's ~120M elem/s scatter wall and no
-    formulation measured beats it: in-bounds pad equal, one 2-column
-    scatter 6x worse, split kernels equal — BENCHMARKS.md round-5
-    retrieval accounting). All costs are input-size-bound (no cap), so
+    stream (one output-sized gather instead of a second full-size value
+    scatter). All costs are input-size-bound (no cap), so
     this variant's time is flat in density, while the compact path
     stays far cheaper at low density (cost ∝ live grams)."""
     m1 = (1 << cb1) - 1

@@ -1,9 +1,7 @@
 """k-char stepped scan tables: one gather advances k symbols.
 
-Honest profiling on TPU v5e (see BENCHMARKS.md) shows the scan is bound by
-XLA's dynamic-gather rate (~0.1-0.2 G gathers/s regardless of width), not by
-HBM bandwidth or the scan loop. The throughput lever is therefore *gathers
-per byte*:
+Each scan step is one data-dependent gather per stream, so the lever on
+throughput is *gathers per byte*:
 
 1. pack (next_state, match_count) into a single int32 word — halves gathers
    vs separate delta/nb_outputs lookups;

@@ -1,14 +1,14 @@
-"""Hybrid gather+MXU count engine: dual-issue the two scan formulations.
+"""Hybrid gather+matmul count engine: both scan formulations in one scan.
 
-The k-gram packed gather scan is bound by the dynamic-gather issue rate
-(~8.2 ns/gather on v5e, BENCHMARKS.md) — a memory-system limit that
-leaves the MXU idle. The digit-matmul scan (ops/scan_mxu.py) is bound by
-MXU/VPU throughput and issues no gathers. Scanning PART of the stream
-columns with each formulation inside ONE ``lax.scan`` body lets XLA
-overlap them: measured on the headline shape (S=3,821, V=28), 1,024 MXU
-columns ride along a 4,096-column gather scan at no wall-clock cost —
-+25-48% symbols/s over gather-only (benchmarks/exp_hybrid.py; the
-production bench.py gain is the committed headline number).
+Part of the stream columns is counted with the packed k-gram gather, the
+rest with the digit-matmul formulation of ops/scan_mxu.py, inside ONE
+``lax.scan`` body — on the premise that the matmul work can hide in the
+gather's issue shadow. On an NVIDIA H100 80GB HBM3 at a 400 W power limit
+(chip_smoke.py phase 6, 64 MiB headline corpus, device-resident) it does
+not: 0.075 s per pass against the gather's 0.018 s at 3,889 states, and
+0.052 s against 0.013 s at 184 states. ``engine="auto"`` therefore never
+picks it on the GPU (ops/autotune.auto_engine); it stays available as
+``engine="hybrid"``.
 
 Both halves run the same automaton and suppress the same halo warm-up,
 so the per-stream totals concatenate exactly like a single-engine launch.
@@ -27,24 +27,18 @@ from jax import lax
 from .multistep import combine_grams
 from .scan_mxu import DIGIT_BITS
 
-# Above this many padded states the MXU half stops paying for itself
-# (its matmul work grows linearly with S while the gather half is flat);
-# envelope picked from exp_hybrid.py / exp_round2_kernels.py exp2.
+# Largest padded state count the engine accepts (its matmul half grows
+# linearly with S while the gather half is flat).
 MAX_HYBRID_STATES = 8192
 
-# MXU columns per gather column. On uniform-random synthetic states the
-# shadow fits ~1:4 (exp_hybrid.py), but the REAL workload's hot-state
-# locality makes the gather half ~1.8x faster, shrinking the shadow:
-# the production sweep (BENCHMARKS.md) peaks at ~1:32-1:64 (+5% headline,
-# monotonically worse beyond 1:21). Scaled inversely with S_pad.
+# MXU columns per gather column at S_pad ~ 4k, scaled inversely with S_pad.
 MXU_FRACTION = 32
 
 
 def mxu_cols(B: int, S_pad: int) -> int:
-    """How many of B total stream columns to scan on the MXU: ~B/32 at
-    S_pad≈4k, scaled down with automaton size so the matmul+VPU work
-    stays inside the gather shadow; multiple of 8, at least 8, at most
-    B/2."""
+    """How many of B total stream columns to scan with digit matmuls:
+    ~B/32 at S_pad≈4k, scaled down with automaton size; multiple of 8, at
+    least 8, at most B/2."""
     b2 = B * 3968 // (MXU_FRACTION * max(S_pad, 1))
     return max(8, min(B // 2, b2 // 8 * 8))
 

@@ -1,24 +1,20 @@
-"""MXU one-hot digit-matmul scan engine — the small-automaton fast path.
+"""One-hot digit-matmul scan engine — lookups as int8 matrix products.
 
-The automaton step next = delta[s, c] is a data-dependent lookup; XLA's
-dynamic gather runs at ~122 M lookups/s on this TPU generation regardless
-of formulation (BENCHMARKS.md round-2 experiments), and Mosaic cannot emit
-vector gathers from multi-vreg tables. For SMALL automata the MXU can do
-the lookup as arithmetic instead:
+The automaton step next = delta[s, c] is a data-dependent lookup. For SMALL
+automata it can be done as arithmetic instead:
 
-    row[b, :]  = onehot(s_b) @ P          (int8 matmul, systolic array)
-    e[b]       = sum_v row[b, v] * onehot(c_b)[v]    (VPU select-reduce)
+    row[b, :]  = onehot(s_b) @ P          (int8 matmul)
+    e[b]       = sum_v row[b, v] * onehot(c_b)[v]    (select-reduce)
 
 where P stacks the packed table (next_state << count_bits | step_count)
 as 7-bit digit planes, so every int8 x int8 -> int32 product is exact
 (a one-hot row has exactly one nonzero; no accumulation overflow).
 
-Measured on TPU v5e (benchmarks/exp_round2_kernels.py exp2/exp2b): the
-MXU path scans 426 M sym/s at S=128 and 395 M at S=512 — 2.9x/2.7x over
-the same-shape gather scan and ~1.4x over the k=2 packed-gather production
-path at that size — but loses above S ~ 2048 where the matmul FLOPs
-(2*S*planes*V per symbol) outgrow the fixed gather cost. DenseScanner
-auto-selects this engine for automata that fit MAX_MXU_STATES.
+Measured on an NVIDIA H100 80GB HBM3 at a 400 W power limit (chip_smoke.py
+phase 6, 64 MiB headline corpus, device-resident): at 184 states (256
+padded) this engine takes 0.068 s per pass against the packed gather's
+0.013 s, so ``engine="auto"`` never picks it on the GPU
+(ops/autotune.auto_engine). It stays available as ``engine="mxu"``.
 
 Reference anchor: this replaces the same hot loop as the gather kernels —
 state_goto, aho_corasick.c:167-192.
@@ -34,12 +30,18 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 
-# Above this many (padded) states the matmul loses to the k=2 packed
-# gather path — crossover measured in exp_round2_kernels.exp2/exp2b.
+# Largest padded state count the engine accepts: its matmul work per
+# symbol (2*S*planes*V) grows with S while a gather's cost does not.
 MAX_MXU_STATES = 512
 
 DIGIT_BITS = 7
 DIGIT_MASK = (1 << DIGIT_BITS) - 1
+
+
+def padded_states(n_states: int) -> int:
+    """Row count of the digit planes for ``n_states`` states: growth
+    headroom for online insertions, rounded up to a multiple of 128."""
+    return max(128, -(-int(n_states * 9 / 8 + 1) // 128) * 128)
 
 
 def build_planes(delta: np.ndarray, nb_outputs: np.ndarray,
@@ -53,7 +55,7 @@ def build_planes(delta: np.ndarray, nb_outputs: np.ndarray,
     passes its own larger envelope — or the packed word would need > 4
     digits)."""
     S, V = delta.shape
-    S_pad = max(128, -(-int(S * 9 / 8 + 1) // 128) * 128)  # growth headroom
+    S_pad = padded_states(S)
     if S_pad > (max_states if max_states is not None else MAX_MXU_STATES):
         return None
     max_cnt = int(nb_outputs.max()) if S else 0

@@ -108,9 +108,7 @@ def window_layout(ids_ext, n_blocks: int, block_len: int, halo: int):
     (t >= halo) are just a reshape+transpose of the stream. The halo rows
     of window b are the last H symbols of window b-1, i.e. body rows
     [L-H:L] shifted one column right, with ids_ext's own head in column 0
-    — a pure bandwidth-bound shuffle. (The round-1 formulation built them
-    as H stride-L slices instead; measured on TPU v5e that cost ~60 ms per
-    67 MB scan, a 22% headline regression — BENCHMARKS.md round-2 notes.)"""
+    — a pure bandwidth-bound shuffle, not H stride-L slices."""
     H, L, B = halo, block_len, n_blocks
     body = ids_ext[H:].reshape(B, L).T                      # [L, B]
     if H == 0:
@@ -181,9 +179,8 @@ def make_blocked_count_stream(V: int, halo: int, B: int, L: int):
     its left halo prepended) and does the window layout ON DEVICE.
 
     The round-1 path laid out [halo+L, B] windows on the host — a
-    cache-hostile 4-byte-strided transpose that dominated end-to-end time
-    (this host's first-touch page faults run at ~70 MB/s). window_layout on
-    device is two HBM-bandwidth passes (~1 ms for 256 MB)."""
+    cache-hostile 4-byte-strided transpose that dominated end-to-end
+    time. window_layout on device is two HBM-bandwidth passes."""
 
     @jax.jit
     def count(dflat, nb_out, ext):

@@ -2,8 +2,8 @@
 
 The reference walks every input symbol through state_goto
 (/root/reference/aho_corasick.c:167-192, 433-448) — O(1) per symbol no
-matter how little of the corpus can possibly match. On TPU the automaton
-scan is gather-rate bound (~4-8 ns/symbol, BENCHMARKS.md), while a
+matter how little of the corpus can possibly match. On the device the
+automaton scan is bound by one dependent gather per step, while a
 "can this region match at all?" test is pure bandwidth. This module
 exploits the vocabulary's OOV contract to skip the automaton over the
 dead parts of the corpus EXACTLY:
@@ -49,8 +49,7 @@ __all__ = ["live_blocks", "make_sparse_count", "make_sparse_count_stepped",
 def live_blocks(ids: np.ndarray, L_blk: int) -> np.ndarray:
     """Host filter pass: bool[ceil(T/L_blk)] — block contains a non-OOV id.
     Letter ids are non-negative, so a row-max reduce is the fastest exact
-    formulation (measured ~35 GB/s vs ~8 GB/s for `(!=0).any(axis=1)`,
-    which materializes a bool temp). The tail block is judged on its real
+    formulation (`(!=0).any(axis=1)` materializes a bool temp). The tail block is judged on its real
     symbols only (padding is OOV and therefore dead)."""
     T = len(ids)
     nB = -(-T // L_blk)
@@ -110,7 +109,7 @@ def raw_live_blocks(raw: np.ndarray, lut_host: np.ndarray, n_lut: int,
     the id map, pre-masked to the snapshot). Byte corpora take a uint8
     bool-LUT gather writing at most 1 byte/symbol: the int64 clamp
     formulation allocates GBs of temporaries, and slow-first-touch hosts
-    fault fresh pages at ~125 MB/s (measured). Returns (live bool[nB],
+    pay for every fresh page. Returns (live bool[nB],
     nB_real)."""
     T = len(raw)
     nB_real = -(-T // L_blk)

@@ -4,7 +4,7 @@ The reference has no distributed dimension at all (SURVEY.md §2c) — its only
 concurrency is a process-local mutex (aho_corasick.c:81). Here the corpus is
 sharded data-parallel over a 1-D ``jax.sharding.Mesh`` ("data" axis), the
 automaton tables are replicated per chip, and match reductions ride XLA
-collectives over ICI/DCN. A 1-D mesh is the right shape for this workload:
+collectives (NCCL on GPUs). A 1-D mesh is the right shape for this workload:
 the automaton is small and replicated (no tensor/pipeline dimension), so all
 devices — across hosts too — form one data axis.
 """
@@ -39,9 +39,10 @@ def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> None:
     """Multi-host bring-up: initialize jax.distributed so jax.devices()
-    spans the whole pod slice and shard_map collectives ride ICI within a
-    slice / DCN across hosts. On single-host or TPU-pod-with-metadata
-    setups all arguments are auto-detected; call once before make_mesh().
+    spans every host's devices. Pass the coordinator address (e.g.
+    ``localhost:<port>``), the process count and this process's id where
+    nothing in the environment tells JAX of the cluster; call once before
+    make_mesh().
 
     The scan path needs no further multi-host awareness: shard_map +
     NamedSharding place data by device order, the halo ppermute touches

@@ -8,13 +8,12 @@ receives the last ``halo`` symbols of its left neighbor via ``lax.ppermute``
 the root as warm-up (convergence proof in ops/blocking.py), then scans its
 own symbols with the same blocked kernel used single-chip. Per-stream int32
 totals are combined with ``all_gather`` and summed on the host in int64 (a
-two-level reduction: no 2^31 mesh-wide cap) — collectives over ICI/DCN being
-the TPU-native equivalent of the NCCL-class backend the reference never had
+two-level reduction: no 2^31 mesh-wide cap). XLA hands the collectives to
+NCCL on GPUs — the communication backend the reference never had
 (SURVEY.md §2c, §5 "Distributed communication backend").
 
 Works unchanged on a multi-host mesh: shard_map + NamedSharding place the
-collectives on ICI within a slice and DCN across hosts; nothing here is
-host-count-aware.
+collectives; nothing here is host-count-aware.
 """
 
 from __future__ import annotations
@@ -213,7 +212,7 @@ def make_sharded_hybrid_count(mesh: Mesh, V: int, k: int, Vk: int,
                               n_streams_per_device: int = 256,
                               axis_name: str = DATA_AXIS,
                               raw: bool = False):
-    """Mesh-wide hybrid gather+MXU dual-issue count (ops/scan_hybrid.py):
+    """Mesh-wide hybrid gather+matmul count (ops/scan_hybrid.py):
     packed table + digit planes replicated, corpus sharded, same ppermute
     halo handoff and two-level int32/int64 reduction as the other sharded
     counts. Tiny per-device streams (B < 16) degenerate to the pure
@@ -679,8 +678,8 @@ def make_sharded_stepped_hits_extract(mesh: Mesh, V: int, k: int,
 
 
 @lru_cache(maxsize=None)
-def make_sharded_block_filter(mesh: Mesh, L_blk: int, halo: int,
-                              nB_loc: int, axis_name: str = DATA_AXIS):
+def make_sharded_block_filter(mesh: Mesh, L_blk: int, nB_loc: int,
+                              axis_name: str = DATA_AXIS):
     """Phase A of DEVICE-RESIDENT mesh sparse scanning (round 5): each
     shard runs the live-block filter on its own slice entirely on device
     (the mesh sibling of ops/sparse.make_block_filter). The order arrays
@@ -870,9 +869,9 @@ class ShardedScanner:
         """``engine``: same contract as DenseScanner — "gather" (packed
         k-gram gather, default workhorse), "mxu" (one-hot digit-matmul
         count engine, small automata only, raises when oversize), "hybrid"
-        (dual-issue gather+MXU count, mid-size automata — raises when
-        outside the ops/scan_hybrid.py envelope), "auto" (pick by the
-        measured single-chip crossovers: TPU backend + size envelopes).
+        (gather + digit matmuls in one scan, mid-size automata — raises
+        when outside the ops/scan_hybrid.py envelope), "auto" (the same rule
+        as DenseScanner: ops/autotune.auto_engine).
 
         ``prefilter``: "off" | "auto" | "on" — the filter-then-verify
         sparse count for low-match-density corpora (ops/sparse.py),
@@ -936,17 +935,9 @@ class ShardedScanner:
         each available engine's production count() once over the sharded
         synthetic corpus, keep the fastest, cache per (backend, device
         kind, geometry, mesh size)."""
-        from ..ops import autotune, scan_hybrid, scan_mxu
-        candidates = ["gather"]
-        if scan_mxu.build_planes(self.tables.delta,
-                                 self.tables.nb_outputs) is not None:
-            candidates.append("mxu")
-        st = self._snap.stepped
-        if (st is not None and st.packed is not None
-                and scan_mxu.build_planes(
-                    self.tables.delta, self.tables.nb_outputs,
-                    max_states=scan_hybrid.MAX_HYBRID_STATES) is not None):
-            candidates.append("hybrid")
+        from ..ops import autotune
+        candidates = autotune.engine_candidates(self.tables,
+                                                self._snap.stepped)
         choice = "gather"
         if len(candidates) > 1:
             key = autotune.geometry_key(
@@ -1012,46 +1003,12 @@ class ShardedScanner:
         else:
             self._halo_steps = 0
             self._halo_sym = 0
-        # MXU digit-matmul count engine (ops/scan_mxu.py), planes
-        # replicated; rebuilt on every (re)bind so refresh() keeps it in
-        # sync with the dictionary (S is small by construction). Same auto
-        # gate as DenseScanner: TPU backend + measured-crossover envelope.
-        self._mxu = None
-        on_tpu = jax.default_backend() != "cpu"
-        if self._engine in ("auto", "mxu"):
-            from ..ops import scan_mxu
-            built = scan_mxu.build_planes(self.tables.delta,
-                                          self.tables.nb_outputs)
-            if built is not None:
-                planes, cbits, n_planes, S_pad = built
-                flops_ok = S_pad * n_planes * self.V <= 512 * 3 * 32
-                if self._engine == "mxu" or (on_tpu and flops_ok):
-                    self._mxu = (jax.device_put(planes, self._repl),
-                                 cbits, n_planes, S_pad)
-            if self._mxu is None and self._engine == "mxu":
-                raise ValueError(
-                    "automaton too large for the MXU engine (padded states "
-                    "or digit planes over the ops/scan_mxu.py limits); use "
-                    "engine='gather'")
-        # Hybrid gather+MXU dual-issue count (ops/scan_hybrid.py): mesh
-        # parity with DenseScanner — mid-size automata on TPU, needs the
-        # packed stepped table for the gather half.
-        self._hybrid = None
-        if (self._mxu is None and st is not None and st.packed is not None
-                and self._engine in ("auto", "hybrid")):
-            from ..ops import scan_hybrid, scan_mxu
-            built = scan_mxu.build_planes(
-                self.tables.delta, self.tables.nb_outputs,
-                max_states=scan_hybrid.MAX_HYBRID_STATES)
-            if built is not None and (self._engine == "hybrid" or on_tpu):
-                planes, cbits, n_planes, S_pad = built
-                self._hybrid = (jax.device_put(planes, self._repl),
-                                cbits, n_planes, S_pad)
-            if self._hybrid is None and self._engine == "hybrid":
-                raise ValueError(
-                    "automaton too large for the hybrid engine (padded "
-                    "states over ops/scan_hybrid.MAX_HYBRID_STATES, or no "
-                    "packed stepped table); use engine='gather'")
+        # Count engine: the same rule as DenseScanner
+        # (ops/autotune.resolve_engine), planes replicated.
+        from ..ops import autotune
+        self._mxu, self._hybrid = autotune.resolve_engine(
+            self._engine, self.tables, st,
+            lambda a: jax.device_put(a, self._repl))
 
     def refresh(self) -> bool:
         """Catch the replicated device snapshot up with the machine's
@@ -1246,7 +1203,7 @@ class ShardedScanner:
         if Tl % L_blk:
             return None
         nB_loc = Tl // L_blk
-        filt = make_sharded_block_filter(self.mesh, L_blk, halo, nB_loc,
+        filt = make_sharded_block_filter(self.mesh, L_blk, nB_loc,
                                          self.axis_name)
         order, n_live_all = filt(placed)
         n_live = np.asarray(n_live_all).reshape(-1)
@@ -1842,7 +1799,7 @@ class ShardedScanner:
         if Tl % L_blk:
             return None
         nB_loc = Tl // L_blk
-        filt = make_sharded_block_filter(self.mesh, L_blk, halo, nB_loc,
+        filt = make_sharded_block_filter(self.mesh, L_blk, nB_loc,
                                          self.axis_name)
         order, n_live_all = filt(placed)
         n_live = np.asarray(n_live_all).reshape(-1)       # [D]

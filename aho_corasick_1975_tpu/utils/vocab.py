@@ -2,7 +2,7 @@
 
 The reference keeps letters fully generic (``void*`` signs + a user comparator,
 aho_corasick.h:33-45, cmp_default c:134-138) and pays an ordered-map lookup per
-symbol at scan time. The TPU-native design resolves genericity *once*, at
+symbol at scan time. This design resolves genericity *once*, at
 registration time: every distinct sign (equivalence class under the user key
 function) gets a dense ``int32`` id, and the scan operates on ids only.
 

@@ -8,7 +8,7 @@ geometry (tens of thousands of byte keywords, k=1 packed table) plus one
 production count at a fixed stream width, timing construction and the
 first count (which includes compilation).
 
-Run ALONE on the TPU. Prints one JSON line; writes
+Run alone on a GPU (one process per card). Prints one JSON line; writes
 results_compile_cache.json.
 """
 

@@ -1,20 +1,21 @@
 """BASELINE.json configs 2-5, runnable end to end.
 
-2. mrs_dalloway.txt with a ~100-word English dictionary (char alphabet,
-   output-set collapse exercised). Reports both the single-pass time over
-   the raw 376,617-byte corpus (the reference's own published task shape,
-   README.md:367) and the steady-state device rate on the corpus tiled to
-   ~64 MB.
+2. English-like text with a ~100-word dictionary of its most frequent
+   words (char alphabet, output-set collapse exercised): the seeded
+   Zipfian corpus of utils/corpus.py cut to 376,617 bytes (the size of the
+   reference's own published task, README.md:367) for a single pass, and
+   tiled to ~64 MB for the steady-state device rate.
 3. 10k-keyword dictionary over a synthetic ASCII corpus, single chip
    (dense-table gather throughput). Corpus size scales with AC_BENCH_MB
-   (default 100 MB on TPU, 8 MB elsewhere).
+   (default 100 MB on a GPU, 8 MB elsewhere).
 4. Unicode multilingual keywords (50k) over a codepoint corpus, matched
    byte-wise via UTF-8 (the scalable representation for open alphabets).
 5. Meyer incremental: +1k keywords online onto a live 10k automaton, then
-   a sharded corpus count with psum reduction (virtual CPU mesh when only
-   one chip is present; structure identical on a pod).
+   a sharded corpus count with psum reduction over the devices that exist
+   (``--cpu``: 8 virtual CPU devices instead).
 
-Each config prints one JSON line. Run: python benchmarks/bench_configs.py [3|4|5]
+Each config prints one JSON line.
+Run: python benchmarks/bench_configs.py [--cpu] [2|3|4|5]
 """
 
 import json
@@ -33,17 +34,9 @@ def config2():
     import jax
 
     import aho_corasick_1975_tpu as ac
+    from aho_corasick_1975_tpu.utils import corpus
 
-    path = "/root/reference/examples/mrs_dalloway.txt"
-    try:
-        with open(path, "r", errors="replace") as f:
-            raw = f.read()
-    except OSError:
-        rng = np.random.default_rng(0)
-        words = ["".join(rng.choice(list("abcdefghij"),
-                                    size=rng.integers(2, 9)))
-                 for _ in range(2000)]
-        raw = " ".join(rng.choice(words) for _ in range(60000))
+    raw = corpus.generate(376_617).text.decode()
     # Normalize like the reference's Test 2 (generic_test.c:192-195).
     norm = re.sub(r"[^a-z]", " ", raw.lower())
     freq = {}
@@ -73,8 +66,8 @@ def config2():
         t_host = min(t_host, time.perf_counter() - t0)
     assert host_total == total1
 
-    on_tpu = jax.devices()[0].platform != "cpu"
-    target = (64 << 20) if on_tpu else (4 << 20)
+    on_gpu = jax.devices()[0].platform == "gpu"
+    target = (64 << 20) if on_gpu else (4 << 20)
     reps = max(1, target // len(single))
     tiled = single * reps
     total = sc.count(tiled)
@@ -113,8 +106,8 @@ def config3():
 
     import aho_corasick_1975_tpu as ac
 
-    on_tpu = jax.devices()[0].platform != "cpu"
-    mb = int(os.environ.get("AC_BENCH_MB", 100 if on_tpu else 8))
+    on_gpu = jax.devices()[0].platform == "gpu"
+    mb = int(os.environ.get("AC_BENCH_MB", 100 if on_gpu else 8))
     rng = np.random.default_rng(0)
     m = ac.Machine()
     for c in range(26):
@@ -168,18 +161,18 @@ def config4():
     build_s = time.perf_counter() - t0
     import jax
     import jax.numpy as jnp
-    on_tpu = jax.devices()[0].platform != "cpu"
+    on_gpu = jax.devices()[0].platform == "gpu"
     corpus = "".join(
         words[rng.integers(0, len(words))] if rng.random() < 0.05
         else chr(int(rng.integers(0x4E00, 0x9FFF)))
         for _ in range(300_000)).encode("utf-8")
     # Tile up to a size where the rate is not launch-overhead-bound.
-    corpus = corpus * max(1, ((32 << 20) if on_tpu else (4 << 20))
+    corpus = corpus * max(1, ((32 << 20) if on_gpu else (4 << 20))
                           // len(corpus))
     # 2 GB stepped budget: opts in to the k=1 packed table on this big
-    # automaton (+24% measured, BENCHMARKS.md round 3) — the default
-    # 128 MB budget now bounds stepped-table memory for k=1 too.
-    sc = m.scanner(n_streams=16384 if on_tpu else 4096,
+    # automaton — the default 128 MB budget bounds stepped-table memory
+    # for k=1 too.
+    sc = m.scanner(n_streams=16384 if on_gpu else 4096,
                    step_budget_bytes=2 << 30)
     total = sc.count(corpus)
     t_e2e = float("inf")
@@ -206,18 +199,12 @@ def config4():
 
 
 def config5():
-    if "--xla_force_host_platform_device_count" not in os.environ.get(
-            "XLA_FLAGS", ""):
+    if "--cpu" in sys.argv[1:]:
         os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                                    + " --xla_force_host_platform_device_count=8")
-    import jax
-    if (jax.config.jax_platforms or "").strip() not in ("cpu", "tpu"):
-        try:
-            jax.config.update("jax_platforms", "cpu")
-        except Exception:
-            pass
-    if jax.local_device_count() < 2:
+        import jax
         jax.config.update("jax_platforms", "cpu")
+    import jax
 
     import aho_corasick_1975_tpu as ac
     from aho_corasick_1975_tpu.parallel.mesh import make_mesh
@@ -260,13 +247,14 @@ def config5():
 
 
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["2", "3", "4", "5"]
+    which = [a for a in sys.argv[1:] if a != "--cpu"] or ["2", "3", "4", "5"]
+    cpu = ["--cpu"] if "--cpu" in sys.argv[1:] else []
     if len(which) == 1:
         {"2": config2, "3": config3, "4": config4,
          "5": config5}[which[0]]()
     else:
-        # each config in its own process: config 5 must pick its platform
-        # (virtual CPU mesh) before any backend initialization
+        # each config in its own process (one process per card at a time;
+        # config 5 must pick its platform before backend initialization)
         import subprocess
         for w in which:
-            subprocess.run([sys.executable, __file__, w], check=True)
+            subprocess.run([sys.executable, __file__, w] + cpu, check=True)

@@ -9,7 +9,7 @@ Legs:
 * resident — pre-placed [L, B] device batch (serving pins steady
              batches): pure scan rate, no wire at all.
 
-Run ALONE on the TPU. Prints one JSON line; writes
+Run alone on a GPU (one process per card). Prints one JSON line; writes
 results_count_many.json.
 """
 

@@ -1,13 +1,15 @@
 """Dictionary construction (insert) throughput.
 
 Reference baseline (README.md:366-367): 370,099 keywords / 3,864,776 chars
-registered in 0.92 s (~4.2 MB/s) on unspecified hardware. This benchmark
-reproduces that scale with the reference Test-3 shape (random fixed-length
-keywords over a 26-letter alphabet, generic_test.c:252-255) against both
-backends, plus the dense-table emission cost (the extra step the reference
-doesn't have, paid once per snapshot).
+registered in 0.92 s (~4.2 MB/s, the reference's own figure) on unspecified
+hardware. This benchmark reproduces that scale with the reference Test-3
+shape (random fixed-length keywords over a 26-letter alphabet,
+generic_test.c:252-255) against both backends, plus the dense-table
+emission cost (the extra step the reference doesn't have, paid once per
+snapshot).
 
-Host-only (no TPU needed): run directly with `python benchmarks/bench_insert.py`.
+Host-only (no accelerator needed): run directly with
+`python benchmarks/bench_insert.py`.
 """
 
 import json

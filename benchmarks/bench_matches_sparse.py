@@ -1,13 +1,11 @@
 """Retrieval-vs-count ratio at realistic match density (VERDICT r3 #3).
 
-The headline corpus (bench_matches.py) is pathologically match-dense —
-9.6M matches in 67 MB, one per 7 bytes — which makes ANY retrieval pay
-~10 gather/scatter passes over 16M+ element buffers (the measured v5e
-scatter wall is ~120M elem/s; see ops/hits.py). This bench measures the
+The headline corpus (bench_matches.py) is match-dense — about one match
+per 7 bytes — which makes ANY retrieval pay ~10 gather/scatter passes over
+16M+ element buffers (see ops/hits.py). This bench measures the
 production serving shape instead: 1000 byte keywords, ~30k matches in a
-64 MB corpus (0.04% of positions). Here phase B costs ~0.23 s at its
-pow2 cap bucket and find_matches(max_hits=...) lands within ~1.1x of
-count() — the sequential leg is literally the count kernel.
+64 MB corpus (0.04% of positions), where the sequential leg of
+find_matches(max_hits=...) is literally the count kernel.
 
 Prints one JSON line.
 """

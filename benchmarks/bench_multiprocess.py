@@ -1,25 +1,29 @@
 """BASELINE config 5 at spec scale: ~1 GB corpus, 2 OS processes (VERDICT r3 #4).
 
 Round 3 validated the multi-controller path on kilobytes
-(tests/test_distributed.py); the >=90% scaling-efficiency target was argued,
-never measured. This benchmark measures it, at spec scale, on the 2-process
-rig this container supports:
+(tests/test_distributed.py). This benchmark emulates N hosts with N OS
+processes on the CPU:
 
 * a 10k-keyword machine (7-char keywords over a 26-letter byte alphabet),
 * a ~1 GB uint8 corpus (AC_MP_MB to resize), identical in every process,
 * sharded across N processes glued by jax.distributed (1 virtual CPU
   device per process), counts combined by the all_gather/int64 two-level
   reduction (the psum-equivalent global accumulation the reference's
-  harness does serially, /root/reference/examples/aho_corasick_generic_test.c:271-274),
+  harness does serially, reference examples/aho_corasick_generic_test.c:271-274),
 * +1k Meyer online insertions mid-run, scanner.refresh(), re-count,
   verified against the host-native streaming oracle.
 
-Scaling methodology — this host has 2 physical cores, so "two hosts" is
-emulated by PINNING each process to its own core (taskset) and the
-1-process baseline to one core: per-host compute is constant, as on a real
-multi-host pod, and strong-scaling efficiency is t1 / (N * tN) for the
-same global corpus. Without pinning the two processes would time-share the
-same cores and the number would measure the scheduler, not the framework.
+Every worker pins JAX to the CPU before any backend initialization, so no
+worker ever opens a GPU and no two processes contend for one card. The
+multi-card path on GPUs is one process driving all cards
+(``python chip_smoke.py --four``).
+
+Scaling methodology — "N hosts" is emulated by PINNING each process to its
+own core (taskset) and the 1-process baseline to one core: per-host compute
+is constant, as on a real multi-host cluster, and strong-scaling efficiency
+is t1 / (N * tN) for the same global corpus. Without pinning the processes
+would time-share the same cores and the number would measure the
+scheduler, not the framework.
 
 Run:  python benchmarks/bench_multiprocess.py          # driver, prints one JSON line
       AC_MP_MB=256 python benchmarks/bench_multiprocess.py   # smaller corpus
@@ -57,6 +61,8 @@ def worker(proc_id: int, nproc: int, port: str) -> None:
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                                + " --xla_force_host_platform_device_count=1")
     import jax
+    # pinned to the CPU: the worker processes never open a GPU, so no two
+    # of them contend for one card
     jax.config.update("jax_platforms", "cpu")
     import numpy as np
 

@@ -3,7 +3,7 @@
 BASELINE config-5 shape: 10k random 7-char keywords live, then 1k more
 registered online (Meyer mode). Measures how fast the device snapshot
 catches up, which is the serving-side cost of the reference's
-insert-during-scan feature (README.md:352-356) under the TPU snapshot
+insert-during-scan feature (README.md:352-356) under the device snapshot
 consistency model.
 
 Run: timeout 560 python benchmarks/bench_refresh.py

@@ -1,13 +1,13 @@
-"""Scaling-efficiency benchmark for the sharded scan (BASELINE target:
->=90% bytes/s scaling efficiency from 1 to N>=2 hosts).
+"""Weak-scaling benchmark for the sharded scan: bytes/s per mesh size at
+constant work per device, plus the per-scan communication + halo warm-up
+share (one (max_kw_len-1)-symbol ppermute halo plus one all_gather of the
+per-stream totals, independent of corpus size).
 
-On a real pod slice this measures wall-clock weak scaling directly. In this
-container (one physical chip) it runs on the virtual CPU mesh, which still
-validates the *communication structure*: per-scan traffic is one
-(max_kw_len-1)-symbol ppermute halo plus one scalar psum, independent of
-corpus size — there is nothing in the design that can break linear scaling.
+Usage: python benchmarks/bench_scaling.py [--cpu] [n_devices_list...]
 
-Usage: python benchmarks/bench_scaling.py [n_devices_list...]
+It uses the devices that exist; ``--cpu`` runs on 8 virtual CPU devices
+instead, which validates the communication structure only (they share the
+host's cores, so their efficiency numbers are not hardware scaling).
 """
 
 import json
@@ -21,27 +21,20 @@ sys.path.insert(0, ".")
 
 def main():
     import os
-    if "--xla_force_host_platform_device_count" not in os.environ.get(
-            "XLA_FLAGS", ""):
+    args = sys.argv[1:]
+    if "--cpu" in args:
+        args.remove("--cpu")
         os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                                    + " --xla_force_host_platform_device_count=8")
-    import jax
-    # Device queries initialize the backend and freeze the platform, so the
-    # virtual-CPU fallback must be decided up front: only a real multi-chip
-    # platform (tpu) skips it.
-    if (jax.config.jax_platforms or "").strip() not in ("cpu", "tpu"):
-        try:
-            jax.config.update("jax_platforms", "cpu")
-        except Exception:
-            pass
-    if jax.local_device_count() < 2:
+        import jax
         jax.config.update("jax_platforms", "cpu")
+    import jax
 
     import aho_corasick_1975_tpu as ac
     from aho_corasick_1975_tpu.parallel.mesh import make_mesh
     from aho_corasick_1975_tpu.parallel.sharded_scan import ShardedScanner
 
-    sizes = [int(a) for a in sys.argv[1:]] or [1, 2, 4, 8]
+    sizes = [int(a) for a in args] or [1, 2, 4, 8]
     sizes = [n for n in sizes if n <= jax.local_device_count()]
 
     rng = np.random.default_rng(0)

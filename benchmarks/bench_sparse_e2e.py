@@ -1,9 +1,9 @@
 """End-to-end sparse scan ABOVE the upload floor (VERDICT r3 stretch #8).
 
-This rig's end-to-end ceiling for dense corpora is the host->device
-transfer (e2e ~= the device_put floor, BENCHMARKS.md). For SPARSE corpora
-the round-4 dead-block elision breaks that ceiling: the host filter pass
-(~35 GB/s) marks live 128-symbol blocks, the compacted live windows are
+The end-to-end ceiling for dense corpora is the host->device transfer
+(e2e ~= the device_put floor). For SPARSE corpora the round-4 dead-block
+elision breaks that ceiling: the host filter pass marks live 128-symbol
+blocks, the compacted live windows are
 gathered on host and ONLY they upload — wire bytes = live fraction x
 corpus — before the standard count core runs on the windows. This bench
 measures end-to-end count() from raw host bytes on a 256 MB sparse corpus
@@ -69,15 +69,14 @@ def main() -> None:
         _ = ms.starts
         tr = min(tr, time.perf_counter() - t0)
 
-    # Raw upload floor for the SAME bytes (synchronous materialization).
+    # Raw upload floor for the SAME bytes (block_until_ready per rep).
+    import jax
     raw = np.frombuffer(corpus_b, np.uint8)
-    up = jnp.asarray(raw)
-    _ = int(up[-1])
+    jax.block_until_ready(jnp.asarray(raw))
     tu = float("inf")
     for _ in range(2):
         t0 = time.perf_counter()
-        up = jnp.asarray(raw)
-        _ = int(up[-1])
+        jax.block_until_ready(jnp.asarray(raw))
         tu = min(tu, time.perf_counter() - t0)
 
     print(json.dumps({

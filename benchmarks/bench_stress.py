@@ -3,8 +3,8 @@
 followed by a 1,000,000-char random scan with global match counting.
 
 Reference-local measurements (map shim, SURVEY.md §6): ~0.63-0.74 s per
-25k-keyword insert round, ~0.64-0.99 s per 1M-char scan round. Run on TPU
-for device scans: `python benchmarks/bench_stress.py`.
+25k-keyword insert round, ~0.64-0.99 s per 1M-char scan round. Run on a
+GPU for device scans: `python benchmarks/bench_stress.py`.
 """
 
 import json

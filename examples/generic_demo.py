@@ -1,5 +1,5 @@
 """The generic-capabilities tour — equivalent of the reference's
-examples/aho_corasick_generic_test.c, TPU-style.
+examples/aho_corasick_generic_test.c, on the device scan path.
 
 Test 1: the Aho–Corasick paper graph with adversarial extensions, case-
         insensitive matching, duplicate-value merging, trie dump.

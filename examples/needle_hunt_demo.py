@@ -6,8 +6,7 @@ IDs) through corpora that are mostly dead bytes:
 * `prefilter="on"` — the host filters RAW bytes through a 256-entry LUT
   (no encode of the dead regions) and uploads ONLY the live 128-symbol
   windows: wire bytes = live fraction x corpus, so end-to-end throughput
-  beats the raw upload floor (measured 5.4x on the TPU rig,
-  benchmarks/bench_sparse_e2e.py);
+  can beat the raw upload floor (benchmarks/bench_sparse_e2e.py);
 * retrieval takes the same elided path (`find_matches(max_hits=...)`);
 * the stream session carries matches across chunk edges, and its
   checkpoint + the machine checkpoint implement the crash-recovery

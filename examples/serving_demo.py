@@ -1,7 +1,7 @@
 """Streaming match-serving daemon: session-per-connection, online dictionary.
 
 The reference is a library embedded in one process; this example shows the
-framework's serving shape on TPU: ONE machine + ONE device scanner shared by
+framework's serving shape on the device: ONE machine + ONE device scanner shared by
 all connections, a StreamSession per connection (exact matches across chunk
 edges, resumable), and online keyword registration absorbed into the live
 device tables via DenseScanner.refresh() — no rebuild, no re-upload, no

@@ -1,10 +1,11 @@
 """Multi-chip demo: data-parallel scan over a device mesh.
 
-Shards a corpus across all available devices (or a virtual CPU mesh when
-only one chip is present), replicates the automaton tables, exchanges shard-
-edge halos over ppermute and reduces the match count with psum.
+Shards a corpus across all available devices, replicates the automaton
+tables, exchanges shard-edge halos over ppermute and reduces the match
+count with psum.
 
-Run: python examples/sharded_demo.py
+Run: python examples/sharded_demo.py          # the devices that exist
+     python examples/sharded_demo.py --cpu    # 8 virtual CPU devices
 """
 
 import os
@@ -12,18 +13,13 @@ import sys
 
 sys.path.insert(0, ".")
 
-if "--xla_force_host_platform_device_count" not in os.environ.get(
-        "XLA_FLAGS", ""):
+if "--cpu" in sys.argv[1:]:
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                                + " --xla_force_host_platform_device_count=8")
-
-import jax
-
-if (jax.config.jax_platforms or "").strip() not in ("cpu", "tpu"):
-    try:
-        jax.config.update("jax_platforms", "cpu")
-    except Exception:
-        pass
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+else:
+    import jax
 
 import numpy as np
 

@@ -9,7 +9,7 @@ match path lock-free, advertising concurrent insert + scan in Meyer mode
   read a published shadow of the automaton and never block on inserters
   (acx.cpp "lock-free reader primitives"; memory-ordering stress runs under
   ASan/TSan via `make -C aho_corasick_1975_tpu/native tsan-test`);
-* the TPU path is race-free by construction: scanners pin immutable
+* the device path is race-free by construction: scanners pin immutable
   snapshots (tested in test_meyer_equivalence.py).
 """
 
@@ -143,7 +143,7 @@ def test_lockfree_bulk_match_is_monotone_under_insertion():
 
 
 def test_snapshot_scan_is_isolated_from_bulk_insert():
-    """A TPU-path scanner is immune to concurrent bulk insertion (snapshot
+    """A device-path scanner is immune to concurrent bulk insertion (snapshot
     pinning): counts from a snapshot never change while a bulk runs."""
     m = ac.Machine(backend="native")
     m.insert_keyword("abc")

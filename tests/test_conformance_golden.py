@@ -1,7 +1,7 @@
 """Golden conformance: the reference README demo, byte-for-byte.
 
 Replays examples/test.c (== README.md:61-94) through both the host streaming
-API and the TPU dense-scan path, and asserts the exact golden output line
+API and the device dense-scan path, and asserts the exact golden output line
 (README.md:92-93):
 
     `` 6:he 5:she 6:hers 12:he 21:his 38:he 37:she 56:he 56:hers``

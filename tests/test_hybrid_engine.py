@@ -3,7 +3,7 @@ round-3 scanner hardening (ADVICE r2):
 
 * engine="hybrid" built explicitly on the CPU test backend must agree with
   engine="gather" and the sequential host oracle (the engine previously
-  shipped TPU-auto-selected with zero conformance coverage);
+  shipped auto-selected with zero conformance coverage);
 * the pre-dispatch int32 per-stream accumulator guard;
 * ragged count_many length bucketing (one long outlier no longer pads the
   whole batch);

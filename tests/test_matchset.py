@@ -82,7 +82,7 @@ def test_matchset_sharded():
 def test_matchset_extraction_is_vectorized_at_scale():
     # ~36k matches decode through arrays, not a per-event Python loop;
     # this asserts correctness at volume (the perf claim is benchmarked on
-    # TPU in benchmarks/bench_matches.py).
+    # the device in benchmarks/bench_matches.py).
     m = _machine()
     text = TEXT * 4000
     ms = m.scanner().find_matches(text)

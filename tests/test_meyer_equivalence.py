@@ -60,7 +60,7 @@ def test_incremental_across_snapshots():
 
 def test_new_keywords_affect_next_snapshot_only():
     """Snapshot (scanner) pinning: a scanner built before an insertion keeps
-    matching the old dictionary; a new scanner sees the addition — the TPU
+    matching the old dictionary; a new scanner sees the addition — the device
     consistency model for incremental registration during scan."""
     m = ac.Machine(incremental=True)
     m.insert_keyword("he")

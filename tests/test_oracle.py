@@ -1,4 +1,4 @@
-"""Randomized oracle equivalence: host streaming vs dense TPU scan vs brute
+"""Randomized oracle equivalence: host streaming vs dense device scan vs brute
 force, in both algorithm modes.
 
 The reference's implicit oracle is mode-equivalence (Meyer vs -DNMEYER_85

@@ -113,7 +113,7 @@ def test_paper_graph(incremental):
     expected_lower = {(s, k.lower()) for s, k in expected}
     assert got == expected_lower
 
-    # Dense TPU path.
+    # Dense device path.
     scanner = m.scanner(n_streams=8)
     got_dense = {(match.text().lower(), ev.start)
                  for ev, match in scanner.find_matches(TEXT)}

@@ -1,7 +1,7 @@
 """DenseScanner.refresh(): incremental device-table maintenance.
 
 The reference registers keywords *during* scanning (README.md:352-356,
-exercised at generic_test.c:214-232); our TPU consistency model pins each
+exercised at generic_test.c:214-232); our device consistency model pins each
 scanner to a table snapshot. refresh() bridges snapshots by scattering only
 the changed/affected rows into the capacity-padded device tables. Every test
 here asserts the refreshed scanner is observationally identical to a freshly

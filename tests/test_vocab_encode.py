@@ -112,7 +112,8 @@ def test_empty_inputs():
 
 
 def test_encode_throughput_floor():
-    """The str path must beat 50 MB/s by a wide margin (VERDICT r1 #6)."""
+    """The str path must encode over 50e6 symbols per second on the host
+    (VERDICT r1 #6)."""
     import time
     v = Vocab()
     for ch in "abcdefgh ":
@@ -122,4 +123,4 @@ def test_encode_throughput_floor():
     t0 = time.perf_counter()
     v.lookup_many(text)
     dt = time.perf_counter() - t0
-    assert len(text) / dt > 50e6, f"{len(text)/dt/1e6:.1f} MB/s"
+    assert len(text) / dt > 50e6, f"{len(text) / dt:.3g} symbols/s"
